@@ -1,9 +1,9 @@
-"""bn254_tpu — a TPU-native BN254 pairing and BLS aggregate-signature framework.
+"""bn254_tpu — a JAX-native BN254 pairing and BLS aggregate-signature framework.
 
-A from-scratch JAX/XLA/Pallas implementation with the full capability surface
+A from-scratch JAX/XLA implementation with the full capability surface
 of the reference `sedaprotocol/bn254` Rust crate (see SURVEY.md): key
 management, BLS sign/verify/aggregate, hash-to-G1, point codecs, NEAR
-precompile formatters — plus the TPU-first additions the reference lacks:
+precompile formatters — plus the batch-first additions the reference lacks:
 vmapped batch verification, mesh-sharded multi-chip execution with Fq12
 product collectives, and a shared final exponentiation.
 

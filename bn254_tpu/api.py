@@ -1,4 +1,4 @@
-"""High-level batched device API: sign / verify at TPU throughput.
+"""High-level batched device API: sign / verify at device throughput.
 
 Bridges protocol objects (Python-int points) and the device pipeline
 (Montgomery limb tensors). These are the workloads behind the benchmark
@@ -94,7 +94,7 @@ def batch_verify(
         # per-tuple bools; fused-tier cost when all tuples are valid
         # (falls back to the exact independent tier on rejection — see
         # BV.verify_batch_adaptive for the 2^-rlc_bits caveat). Weights
-        # follow cfg.glv_weights like mode="fused" (ADVICE r4).
+        # follow cfg.glv_weights like mode="fused".
         if cfg.glv_weights:
             w = BV.random_weights(n, cfg.rlc_bits)
         else:
@@ -150,17 +150,6 @@ def batch_check_public_keys(public_keys_g2, public_keys_g1):
     onex_j, oney_j = CV.g1_batch_to_device_affine([HC.G1_ONE])
     onex = L.bcast_to(L.elmap(lambda a: a[:, 0], onex_j), B)
     oney = L.bcast_to(L.elmap(lambda a: a[:, 0], oney_j), B)
-
-    from .dist.batch_verify import _use_pair2
-
-    if _use_pair2(onex, g1x, pqx):
-        # both G2 points of the check are constants; pair 1 (the G1-side
-        # key against +G2::one) folds precomputed generator lines
-        return np.asarray(
-            DP.pairing_check2_staged(
-                onex, oney, pqx, pqy, g1x, g1y, q_const="g2_one"
-            )
-        )
 
     g2x, g2y = CV.g2_const_affine(HC.G2_ONE, B)
     px = L.stack([onex, g1x])

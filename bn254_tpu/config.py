@@ -1,10 +1,16 @@
 """Framework configuration (SURVEY.md §5.6).
 
-One frozen dataclass for every tunable the framework exposes — mesh
-shape, batch size, hash-search width, Pallas kernel toggle, RLC weight
-width, staging — replacing scattered env vars and kwargs. Env vars are
-still honoured as *defaults* (`Config.from_env`) so ops overrides work
-without code changes, but all call sites consume a Config.
+One frozen dataclass for every tunable the framework exposes — batch
+size, hash-search width, RLC weight width, staging —
+replacing scattered env vars and kwargs. Env vars are still honoured as
+*defaults* (`Config.from_env`) so ops overrides work without code
+changes, but all call sites consume a Config.
+
+The backend decision lives here too (`platform`): every code path that
+differs between the CPU and the GPU asks it. The field engine itself
+takes one form everywhere (`lax.scan` carry chains and CIOS steps); the
+straight-line forms that XLA:GPU compiled without bound were removed
+(PERF.md, H100 bring-up).
 
 The reference's only config surface is a cargo feature flag
 (reference Cargo.toml:15-17); everything here is new-build territory.
@@ -14,6 +20,27 @@ from __future__ import annotations
 
 import dataclasses
 import os
+
+
+def platform() -> str:
+    """The platform JAX runs on ("cpu", "gpu", "cuda", ...).
+
+    The one backend decision: the persistent compile cache (disabled on
+    the CPU) and the bench's parallel AOT prewarm (accelerators only)
+    branch on it.
+
+    Read from the `jax_platforms` setting (or `JAX_PLATFORMS`) when one
+    is named, which does NOT initialise the XLA backend — so it is safe
+    before `jax.distributed.initialize()` in multi-process workers. Only
+    when neither names a platform does it ask `jax.default_backend()`,
+    which initialises the backend; callers therefore ask lazily (at
+    trace time), never at import.
+    """
+    import jax
+
+    plat = jax.config.jax_platforms or os.environ.get("JAX_PLATFORMS", "")
+    plat = plat.split(",")[0].strip().lower()
+    return plat or jax.default_backend()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,42 +60,8 @@ class Config:
     # Shamir ladder over {P, φP, P+φP}). Mirrors BN254_DISABLE_GLV.
     glv_weights: bool = True
 
-    # Pallas CIOS kernel: None = auto (TPU backend + enough lanes),
-    # True/False = force. Mirrors the BN254_DISABLE_PALLAS env var.
-    use_pallas: bool | None = None
-
-    # Fused tower-op Pallas kernels (kernels/fused.py): whole Fq12-level
-    # ops as single kernels. False falls back to leaf CIOS kernels with
-    # XLA glue. Mirrors BN254_DISABLE_FUSED.
-    fuse_tower_ops: bool = True
-
-    # Unroll the Miller loop / exp_u at trace time over their STATIC
-    # schedules (one fused step-body kernel per digit, no scan/cond/
-    # select glue, add work only on nonzero digits). Requires
-    # fuse_tower_ops. Mirrors BN254_DISABLE_UNROLL.
-    unroll_static_loops: bool = True
-
-    # minimum flat batch for the Pallas kernel to beat the scan path.
-    pallas_min_lanes: int = 256
-
-    # shared-squaring 2-pair Miller loop with host-precomputed constant
-    # -G2::one lines for the independent verification tier (pairing/
-    # precompute.py): one fq12_sq per digit per TUPLE instead of per
-    # pair, no device G2 arithmetic for the constant pair. Requires
-    # unroll_static_loops + the fused TPU path. Mirrors BN254_PAIR2 /
-    # BN254_DISABLE_PAIR2.
-    # Default ON since round 4: measured 36,761 verifies/s/chip vs
-    # 30,645 stacked-pair (B=4096, BENCH_SUITE indep_pair2_B4096; the
-    # bench's ok.all() assert is the device correctness gate).
-    pair2_miller: bool = True
-
-    # scoped-VMEM budget (MiB) for the fused tower-op kernels; None =
-    # derive from the device generation (128 MiB VMEM parts get 100,
-    # 16 MiB parts disable fusion). Mirrors BN254_VMEM_LIMIT_MB.
-    vmem_limit_mb: int | None = None
-
     # staged pipelines (several small jitted programs) vs one monolithic
-    # program; staging compiles ~10x faster on this toolchain.
+    # program; staging compiles the pairing pipeline far faster.
     staged: bool = True
 
     # mesh axis name used by the sharded verifier and collectives.
@@ -83,20 +76,8 @@ class Config:
     def from_env(cls, **overrides) -> "Config":
         """Defaults from the environment, then explicit overrides."""
         env = {}
-        if os.environ.get("BN254_DISABLE_PALLAS"):
-            env["use_pallas"] = False
-        if os.environ.get("BN254_DISABLE_FUSED"):
-            env["fuse_tower_ops"] = False
-        if os.environ.get("BN254_DISABLE_UNROLL"):
-            env["unroll_static_loops"] = False
-        if os.environ.get("BN254_PAIR2"):
-            env["pair2_miller"] = True
-        if os.environ.get("BN254_DISABLE_PAIR2"):
-            env["pair2_miller"] = False
         if os.environ.get("BN254_K_CANDIDATES"):
             env["k_candidates"] = int(os.environ["BN254_K_CANDIDATES"])
-        if os.environ.get("BN254_VMEM_LIMIT_MB"):
-            env["vmem_limit_mb"] = int(os.environ["BN254_VMEM_LIMIT_MB"])
         if os.environ.get("BN254_RLC_BITS"):
             env["rlc_bits"] = int(os.environ["BN254_RLC_BITS"])
         if os.environ.get("BN254_DISABLE_GLV"):

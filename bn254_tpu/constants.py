@@ -59,7 +59,7 @@ assert P % 4 == 3
 SQRT_EXP_P = (P + 1) // 4
 
 # ---------------------------------------------------------------------------
-# Limb layout for the device (TPU) representation.
+# Limb layout for the device representation.
 #
 # Field elements are lane-packed little-endian 15-bit limbs held in uint32
 # tensors of shape (NLIMBS, ...).  The one bit of limb headroom and ~14 bits

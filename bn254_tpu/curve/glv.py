@@ -3,9 +3,7 @@
 The fused batch-verification tiers (dist/batch_verify.py, BASELINE
 configs 4-5) weight every tuple by a random scalar w_i and compute
 [w_i]H_i and [w_i]sig_i. With plain 128-bit weights that is a 128-step
-double-and-add ladder per point — measured round 3 as the stage that
-made the fused tier LOSE to the per-tuple independent tier (VERDICT r3
-weak #3). This module halves the ladder:
+double-and-add ladder per point. This module halves the ladder:
 
 **Weights are drawn directly in GLV form** w = a + λ·b (mod r) with a, b
 uniform 64-bit, where λ is an eigenvalue of the curve endomorphism
@@ -28,11 +26,8 @@ collided, (Δa, Δb) would be a nonzero vector of the lattice
 norm < sqrt(2)·2^64 — but Lagrange-Gauss reduction of that lattice gives
 shortest vector (-(2u+1), 6u^2+4u+1) of norm ≈ 2^127.
 
-TPU-first structure: the ladder is branch-free (masked 4-way table
-select), fixed-schedule, batch-leading, and on the fused path every step
-runs as ONE Pallas kernel (double + complete add straight-line on VMEM
-tiles) with the tiny bit-extraction/select glue left to XLA, mirroring
-the unrolled Miller loop (pairing/miller.py).
+Batch-first structure: the ladder is branch-free (masked 4-way table
+select), fixed-schedule, batch-leading: one `lax.scan` over the bits.
 
 Reference parity note: the reference has no batch verification at all
 (its verify is the sequential 2-pair check, ecdsa.rs:49-64); weights and
@@ -99,7 +94,7 @@ def random_glv_weights(n: int, bits: int | None = None) -> GlvWeights:
     tuple unweighted in the fused check; every other pair is fine since
     injectivity makes w != 0 for (a, b) != (0, 0). The weight set
     therefore has 2^bits - 1 elements and the forgery bound is the
-    advertised ~2^-bits (ADVICE r4: the old `| 1` odd-forcing halved it).
+    advertised ~2^-bits (forcing weights odd would halve it).
     """
     if bits is None:
         from .. import config as C
@@ -210,68 +205,16 @@ def _select_entry(bit_a, bit_b, table):
     return _select_point(bit_a, hi, lo)
 
 
-def _dbl_add_body_impl(ax, ay, az, sx, sy, sz):
-    """2*acc + sel, straight-line (one fused Pallas kernel per ladder
-    step on TPU): Jacobian doubling + COMPLETE masked addition — the
-    addition handles identity operands and the acc == ±sel edge cases,
-    so adversarially chosen batch points cannot derail the ladder."""
-    acc = J.double(FqOps, J.JPoint(ax, ay, az))
-    out = J.add(FqOps, acc, J.JPoint(sx, sy, sz))
-    return _pin(out.x), _pin(out.y), _pin(out.z)
-
-
-def _bit_static(arr: jnp.ndarray, i: int) -> jnp.ndarray:
-    """Bit i of a (18, *batch) canonical limb tensor, static index."""
-    return (arr[i // LIMB_BITS] >> jnp.uint32(i % LIMB_BITS)) & jnp.uint32(1)
-
-
-def _use_fused_steps(*els: L.El) -> bool:
-    from .. import config as C
-
-    return (
-        C.DEFAULT.unroll_static_loops
-        and T._use_fused(*els)
-    )
-
-
 def shamir_scalar_mul(p: J.JPoint, w: GlvWeights) -> J.JPoint:
     """[a]P + [b]φ(P) by a (bits//2)-step MSB-first Shamir ladder.
 
     p: batched Jacobian point (coords broadcastable against w's batch).
-    On the fused TPU path each step is one Pallas kernel (double +
-    complete add); the 4-way table select and 2-bit extraction stay as
-    XLA elementwise glue (~9 where-ops per step — negligible next to the
-    ~30 leaf muls inside the kernel). CPU / non-fused path: lax.scan
-    with dynamic bit indexing, same math.
+    Each step: Jacobian doubling + COMPLETE masked addition of the
+    table entry — the addition handles identity operands and the
+    acc == ±sel edge cases, so adversarially chosen batch points cannot
+    derail the ladder. `lax.scan` with dynamic bit indexing.
     """
-    nbits = w.half_bits
-    table = _table(p)
-    if _use_fused_steps(p.x, w.a):
-        return _shamir_unrolled(table, w, nbits)
-    return _shamir_scan(table, w, nbits)
-
-
-def _shamir_unrolled(table, w: GlvWeights, nbits: int) -> J.JPoint:
-    from ..kernels import fused as FK
-
-    ident = table[0]
-    acc = ident
-    for i in range(nbits - 1, -1, -1):
-        ba = _bit_static(w.a.arr, i) != 0
-        bb = _bit_static(w.b.arr, i) != 0
-        sel = _select_entry(ba, bb, table)
-        ax, ay, az = FK.fused_op(
-            _dbl_add_body_impl,
-            "glv_dbl_add",
-            acc.x,
-            acc.y,
-            acc.z,
-            sel.x,
-            sel.y,
-            sel.z,
-        )
-        acc = J.JPoint(ax, ay, az)
-    return acc
+    return _shamir_scan(_table(p), w, w.half_bits)
 
 
 def _shamir_scan(table, w: GlvWeights, nbits: int) -> J.JPoint:

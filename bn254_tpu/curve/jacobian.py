@@ -1,7 +1,7 @@
-"""Branch-free batched Jacobian curve arithmetic for TPU.
+"""Branch-free batched Jacobian curve arithmetic for the device.
 
 A single generic implementation instantiated for G1 (Fq coords) and G2
-(Fq2 coords).  TPU-first properties:
+(Fq2 coords).  Batch-first properties:
 
 * **No data-dependent control flow.** Identity handling, the P == Q
   doubling case, and P == -Q cancellation are resolved with masked

@@ -3,7 +3,7 @@
 Lets the branch-free Jacobian curve arithmetic in `jacobian.py` be written
 once and instantiated for both G1 (coords in Fq) and G2 (coords in Fq2),
 mirroring how the host oracle shares `_FieldOps` (host/curve.py) — but here
-every op is a batched TPU tensor op in the Montgomery <= 2p domain.
+every op is a batched device tensor op in the Montgomery <= 2p domain.
 """
 
 from __future__ import annotations

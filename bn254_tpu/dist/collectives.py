@@ -3,8 +3,8 @@
 The key reduction is an **all-reduce whose monoid is Fq12 multiplication**
 (element-wise field product of Miller-loop values). XLA's `psum` only
 knows +/min/max, so the product-reduce is built from `ppermute` rounds +
-local Fq12 multiplication — riding ICI between chips and DCN between
-hosts, exactly the structure SURVEY.md §5.8 prescribes. Each round's
+local Fq12 multiplication (XLA hands the permutes to NCCL between
+cards), exactly the structure SURVEY.md §5.8 prescribes. Each round's
 fq12_mul renormalises the limb representation, so no carry drift
 accumulates across rounds.
 

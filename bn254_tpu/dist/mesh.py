@@ -1,17 +1,17 @@
 """Multi-host mesh construction and distributed initialisation.
 
-SURVEY.md §5.8's TPU-native communication backend: `jax.distributed`
+SURVEY.md §5.8's communication backend: `jax.distributed`
 for process bootstrap, a process-spanning `jax.sharding.Mesh` over the
 global device set, and global-array construction so the sharded verifier
 (dist/batch_verify.py) runs unchanged across hosts — shard-local Miller
-loops on each host's chips, the Fq12-product all-reduce riding ICI
-within a host and DCN across hosts, one shared final exponentiation.
+loops on each host's cards, the Fq12-product all-reduce across them,
+one shared final exponentiation.
 
 The reference is a single-process library (no MPI/NCCL anywhere); this
 whole layer is new-build territory scaled out from `pairing_batch`'s
 product-then-one-final-exp structure (reference src/ecdsa.rs:57).
 
-Works on real multi-host TPU slices and on multi-process CPU clusters
+Works on multi-GPU hosts and on multi-process CPU clusters
 (gloo collectives) — the latter is how CI proves the machinery without
 hardware (tests/test_multiprocess.py).
 """
@@ -41,7 +41,7 @@ def initialize(cfg: Config | None = None, **overrides) -> bool:
     if not cfg.coordinator_address or cfg.num_processes <= 1:
         return False
     try:
-        # required for CPU multi-process collectives; harmless on TPU
+        # required for CPU multi-process collectives; harmless elsewhere
         jax.config.update("jax_cpu_collectives_implementation", "gloo")
     except Exception:
         pass

@@ -1,6 +1,6 @@
-"""Device (TPU) tower fields Fq2 / Fq6 / Fq12 over the lazy limb engine.
+"""Device tower fields Fq2 / Fq6 / Fq12 over the lazy limb engine.
 
-TPU-first structure: every tower multiplication gathers its leaf Fq
+Batch-first structure: every tower multiplication gathers its leaf Fq
 multiplications into ONE batched `mont_mul` call by stacking operands along
 an internal batch axis (axis 1, after the limb axis):
 
@@ -45,29 +45,6 @@ class Fq6(NamedTuple):
 class Fq12(NamedTuple):
     c0: Fq6
     c1: Fq6
-
-
-# ---------------------------------------------------------------------------
-# fused-kernel dispatch (kernels/fused.py): on TPU with a large enough
-# batch, whole Fq12-level ops run as ONE Pallas kernel each — the ~100
-# XLA glue ops around the leaf multiplications (Karatsuba pre-sums,
-# carry chains, stack/unstack) cost more than the muls (PERF.md §4).
-# ---------------------------------------------------------------------------
-
-
-def _use_fused(*els: El) -> bool:
-    if L._KERNEL_MODE:
-        return False  # already inside a fused kernel body
-    from .. import config as C
-    from ..kernels.fused import fused_supported
-    from ..kernels.montmul import use_pallas
-
-    if not C.DEFAULT.fuse_tower_ops:
-        return False
-    if not fused_supported():  # VMEM budget too small (e.g. v2/v3 parts)
-        return False
-    batch = jnp.broadcast_shapes(*[e.arr.shape[1:] for e in els])
-    return use_pallas(batch)
 
 
 def _fq12_els(a: Fq12):
@@ -371,7 +348,7 @@ def fq12_sub(a: Fq12, b: Fq12) -> Fq12:
     return Fq12(fq6_sub(a.c0, b.c0), fq6_sub(a.c1, b.c1))
 
 
-def _fq12_mul_impl(a: Fq12, b: Fq12) -> Fq12:
+def fq12_mul(a: Fq12, b: Fq12) -> Fq12:
     """Karatsuba over Fq6: 3 Fq6 muls in one batched call (54 leaves)."""
     astack = fq6_stack([a.c0, a.c1, fq6_add(a.c0, a.c1)])
     bstack = fq6_stack([b.c0, b.c1, fq6_add(b.c0, b.c1)])
@@ -381,7 +358,7 @@ def _fq12_mul_impl(a: Fq12, b: Fq12) -> Fq12:
     return fq12_squeeze(Fq12(c0, c1))
 
 
-def _fq12_sq_impl(a: Fq12) -> Fq12:
+def fq12_sq(a: Fq12) -> Fq12:
     """Complex-style squaring: t = c0 c1; c0' = (c0+c1)(c0+v c1) - t - v t;
     c1' = 2t — 2 Fq6 muls in one batched call."""
     t, u = fq6_unstack(
@@ -396,7 +373,7 @@ def _fq12_sq_impl(a: Fq12) -> Fq12:
     return fq12_squeeze(Fq12(c0, c1))
 
 
-def _fq12_cyc_sq_impl(a: Fq12) -> Fq12:
+def fq12_cyc_sq(a: Fq12) -> Fq12:
     """Granger-Scott cyclotomic squaring: 18 leaf muls vs fq12_sq's 36.
 
     Valid ONLY for elements of the cyclotomic subgroup (e.g. any easy-part
@@ -449,35 +426,6 @@ def _fq12_cyc_sq_impl(a: Fq12) -> Fq12:
         ),
     )
     return fq12_squeeze(out)
-
-
-def fq12_mul(a: Fq12, b: Fq12) -> Fq12:
-    """Karatsuba over Fq6; ONE fused Pallas kernel on TPU large batches
-    (see _fq12_mul_impl for the formula and kernels/fused.py)."""
-    if _use_fused(*_fq12_els(a), *_fq12_els(b)):
-        from ..kernels import fused as FK
-
-        return FK.fused_op(_fq12_mul_impl, "fq12_mul", a, b)
-    return _fq12_mul_impl(a, b)
-
-
-def fq12_sq(a: Fq12) -> Fq12:
-    """Complex-style Fq12 squaring; fused-kernel dispatched on TPU."""
-    if _use_fused(*_fq12_els(a)):
-        from ..kernels import fused as FK
-
-        return FK.fused_op(_fq12_sq_impl, "fq12_sq", a)
-    return _fq12_sq_impl(a)
-
-
-def fq12_cyc_sq(a: Fq12) -> Fq12:
-    """Granger-Scott cyclotomic squaring; fused-kernel dispatched on TPU.
-    Valid ONLY for cyclotomic-subgroup elements (see _fq12_cyc_sq_impl)."""
-    if _use_fused(*_fq12_els(a)):
-        from ..kernels import fused as FK
-
-        return FK.fused_op(_fq12_cyc_sq_impl, "fq12_cyc_sq", a)
-    return _fq12_cyc_sq_impl(a)
 
 
 def fq12_conj(a: Fq12) -> Fq12:

@@ -1,4 +1,4 @@
-"""Vectorised SHA-256 in pure jnp uint32 ops (batched, TPU-friendly).
+"""Vectorised SHA-256 in pure jnp uint32 ops (batched, device-friendly).
 
 Used by the batched hash-to-G1 path: hashing B messages x K counter
 candidates in one tensor program (SURVEY.md §2.2 "sha2" row: host hashlib

@@ -18,7 +18,7 @@ Quirk preserved: the reference's `mod_u256` loop condition is `>` not `>=`
 reduced and then fails Fq decoding downstream — the ctr is skipped rather
 than mapped to x = 0.
 
-The batched TPU path (bn254_tpu.hash.batch) computes the same function for
+The batched device path (bn254_tpu.hash.batch) computes the same function for
 whole tensors of messages; this module is the scalar host path and the
 semantic reference.
 """

@@ -2,7 +2,7 @@
 
 This module is the *oracle*: a simple, obviously-correct implementation of
 Fq, Fq2 = Fq[i]/(i^2+1), Fq6 = Fq2[v]/(v^3 - xi), Fq12 = Fq6[w]/(w^2 - v)
-used to (a) validate the TPU limb kernels against random and golden vectors,
+used to (a) validate the device limb engine against random and golden vectors,
 and (b) serve the single-operation host paths of the protocol API (the same
 role the Rust `zeropool-bn` dependency plays for the reference; SURVEY.md §2.3).
 

@@ -7,7 +7,7 @@ canonical pairing exponent — so results are comparable bit-for-bit with any
 correct optimal-ate implementation (including the device pipeline and the
 reference's `pairing_batch`, /root/reference/src/ecdsa.rs:57).
 
-This is the oracle/verification path; the TPU device implementation in
+This is the oracle/verification path; the device implementation in
 `bn254_tpu.pairing` uses twisted-coordinate line evaluation and a structured
 final exponentiation instead.
 """

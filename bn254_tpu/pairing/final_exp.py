@@ -1,4 +1,4 @@
-"""Device (TPU) final exponentiation f^((p^12-1)/r) for BN254.
+"""Device final exponentiation f^((p^12-1)/r) for BN254.
 
 Easy part (p^6-1)(p^2+1) followed by the Devegili-style hard-part chain
 (validated bit-for-bit against the canonical generic pow by the host
@@ -37,74 +37,17 @@ _U_WINDOWS = [
 ]
 
 
-# fused step bodies for the trace-time-unrolled exp_u (the window
-# digits of u are compile-time constants, so the {1,f,f^2,f^3} table
-# select happens in PYTHON and zero-windows skip the multiply entirely)
-
-
-def _expu_step_impl(acc: Fq12, m: Fq12) -> Fq12:
-    """(acc^4) * m — one whole window step, straight-line (kernel)."""
-    acc = T.fq12_cyc_sq(acc)
-    acc = T.fq12_cyc_sq(T.fq12_retag(acc))
-    acc = T.fq12_mul(T.fq12_retag(acc), m)
-    return T.fq12_retag(acc)
-
-
-def _expu_sq2_impl(acc: Fq12) -> Fq12:
-    """acc^4 — a zero-window step, straight-line (kernel)."""
-    acc = T.fq12_cyc_sq(acc)
-    acc = T.fq12_cyc_sq(T.fq12_retag(acc))
-    return T.fq12_retag(acc)
-
-
-def _exp_u_unrolled(f: Fq12, windows=None) -> Fq12:
-    """Trace-time-unrolled windowed exp_u: 31 fused step kernels.
-
-    Window digits are static, so zero windows (8 of 31) run a pure
-    double-squaring kernel — the scan form multiplies by `one` there —
-    and nonzero windows fold their table entry inside the same launch
-    as the squarings (no fq12_select glue at all).
-
-    windows: schedule override (tests use a truncated prefix).
-    """
-    from ..kernels import fused as FK
-
-    f = T.fq12_retag(f)
-    f2 = T.fq12_retag(T.fq12_cyc_sq(f))
-    f3 = T.fq12_retag(T.fq12_mul(f2, f))
-    table = {1: f, 2: f2, 3: f3}
-
-    acc = f  # the MSB of u is consumed by the init (as in the scan form)
-    for w in (_U_WINDOWS if windows is None else windows):
-        if w:
-            acc = FK.fused_op(_expu_step_impl, "expu_step", acc, table[w])
-        else:
-            acc = FK.fused_op(_expu_sq2_impl, "expu_sq2", acc)
-    return acc
-
-
-def exp_u(f: Fq12) -> Fq12:
+def exp_u(f: Fq12, window_digits=None) -> Fq12:
     """f^u for a CYCLOTOMIC f (all final-exp call sites qualify).
 
     2-bit windowed square-and-multiply over the fixed bits of u:
     31 scan steps of (2 Granger-Scott cyclotomic squarings + one
     table multiply), with the {1, f, f^2, f^3} table selected by the
     static window digits — half the leaf multiplications of the
-    bit-serial masked form. On TPU with fused kernels the loop unrolls
-    at trace time instead (`_exp_u_unrolled`).
+    bit-serial masked form.
+
+    window_digits: schedule override (tests run a truncated prefix).
     """
-    from .. import config as C
-
-    if C.DEFAULT.unroll_static_loops and T._use_fused(*T._fq12_els(f)):
-        return _exp_u_unrolled(f)
-    return _exp_u_scan(f)
-
-
-def _exp_u_scan(f: Fq12, window_digits=None) -> Fq12:
-    """lax.scan form of `exp_u` (the CPU / non-fused path).
-
-    window_digits: schedule override for truncated-schedule equivalence
-    tests (must match the prefix given to `_exp_u_unrolled`)."""
     f = T.fq12_retag(f)
     f2 = T.fq12_retag(T.fq12_cyc_sq(f))
     f3 = T.fq12_retag(T.fq12_mul(f2, f))
@@ -204,61 +147,3 @@ def final_exp_staged(f: Fq12) -> Fq12:
     ft2 = _exp_u_jit(ft1)
     ft3 = _exp_u_jit(ft2)
     return _hard_jit(f, ft1, ft2, ft3)
-
-
-# ---------------------------------------------------------------------------
-# scalar (batch-()) final exp via one replicated Pallas block
-# ---------------------------------------------------------------------------
-
-# Batch-1 device programs on this backend run ~15x slower than one full
-# Pallas block (measured 216.8 ms vs ~15 ms for the shared final exp of
-# the fused tier — tools/profile_fused.py): tiny (18,)-shaped tensors
-# take the non-fused op-soup path where per-op dispatch dominates. A
-# SCALAR final exp therefore replicates its input across one block's
-# lanes, runs the batched fused pipeline once, and takes lane 0.
-_WIDE_LANES = 256
-
-
-def _map_els(fn, x):
-    if isinstance(x, L.El):
-        return fn(x)
-    return type(x)(*[_map_els(fn, c) for c in x])
-
-
-def _use_wide() -> bool:
-    from .. import config as C
-    from ..kernels.fused import fused_supported
-    from ..kernels.montmul import use_pallas
-
-    return (
-        C.DEFAULT.fuse_tower_ops
-        and fused_supported()
-        and use_pallas((_WIDE_LANES,))
-    )
-
-
-def final_exp_wide(f: Fq12) -> Fq12:
-    """`final_exp` for a scalar Fq12 via the replicated-block trick
-    (falls through to the plain form when batched or non-fused)."""
-    if f.c0.c0.c0.batch_shape != () or not _use_wide():
-        return final_exp(f)
-    fb = _map_els(lambda e: L.bcast_to(e, (_WIDE_LANES,)), f)
-    out = final_exp(fb)
-    return _map_els(lambda e: L.elmap(lambda a: a[:, 0], e), out)
-
-
-def final_exp_staged_wide(f: Fq12) -> Fq12:
-    """`final_exp_staged` for a scalar Fq12 (replicated-block trick)."""
-    if f.c0.c0.c0.batch_shape != () or not _use_wide():
-        return final_exp_staged(f)
-    fb = _widen_jit(f)
-    out = final_exp_staged(fb)
-    return _narrow_jit(out)
-
-
-_widen_jit = jax.jit(
-    lambda f: _map_els(lambda e: L.bcast_to(e, (_WIDE_LANES,)), f)
-)
-_narrow_jit = jax.jit(
-    lambda f: _map_els(lambda e: L.elmap(lambda a: a[:, 0], e), f)
-)

@@ -1,6 +1,6 @@
-"""Device (TPU) optimal-ate Miller loop for BN254.
+"""Device optimal-ate Miller loop for BN254.
 
-TPU-first structure (not a port of the reference dependency's sequential
+Batch-first structure (not a port of the reference dependency's sequential
 Rust loop — SURVEY.md §2.3 "pairing engine" row):
 
 * G2 points stay in **homogeneous projective coordinates on the twist**;
@@ -34,8 +34,6 @@ from ..constants import ATE_LOOP_COUNT, P, XI
 from ..fields import limbs as L
 from ..fields import tower as T
 from ..host import field as HF
-from ..curve import jacobian as J
-from ..curve.ops import Fq2Ops
 
 Fq2 = T.Fq2
 Fq6 = T.Fq6
@@ -87,7 +85,7 @@ def _fq6_mul_by_0(g: Fq6, s0: Fq2) -> Fq6:
     return Fq6(p0, p1, p2)
 
 
-def _fq12_mul_line_impl(f: Fq12, a: Fq2, b: Fq2, c: Fq2) -> Fq12:
+def fq12_mul_line(f: Fq12, a: Fq2, b: Fq2, c: Fq2) -> Fq12:
     """f * (A + B w + C v w) — Karatsuba: r0 = f0 A + v f1 (B + C v),
     r1 = (f0+f1)(A+B + C v) - f0 A - f1(B + C v)."""
     t0 = _fq6_mul_by_0(f.c0, a)
@@ -99,30 +97,12 @@ def _fq12_mul_line_impl(f: Fq12, a: Fq2, b: Fq2, c: Fq2) -> Fq12:
     return T.fq12_squeeze(Fq12(r0, r1))
 
 
-def fq12_mul_line(f: Fq12, a: Fq2, b: Fq2, c: Fq2) -> Fq12:
-    """Sparse 034 line fold; ONE fused Pallas kernel on TPU (PERF.md)."""
-    if T._use_fused(*T._fq12_els(f), a.c0, b.c0, c.c0):
-        from ..kernels import fused as FK
-
-        return FK.fused_op(_fq12_mul_line_impl, "fq12_mul_line", f, a, b, c)
-    return _fq12_mul_line_impl(f, a, b, c)
-
-
 # ---------------------------------------------------------------------------
 # Miller loop steps
 # ---------------------------------------------------------------------------
 
 
 def _dbl_step(t: ProjG2, xp, yp):
-    """Tangent-line doubling (fused-kernel dispatched on TPU)."""
-    if T._use_fused(t.x.c0, t.y.c0, t.z.c0, xp, yp):
-        from ..kernels import fused as FK
-
-        return FK.fused_op(_dbl_step_impl, "g2_dbl_step", t, xp, yp)
-    return _dbl_step_impl(t, xp, yp)
-
-
-def _dbl_step_impl(t: ProjG2, xp, yp):
     """Tangent-line doubling. Returns (2T, (A, B, C))."""
     X, Y, Z = t
     # squares / products (gathered where trivially parallel)
@@ -156,15 +136,6 @@ def _dbl_step_impl(t: ProjG2, xp, yp):
 
 
 def _add_step(t: ProjG2, qx: Fq2, qy: Fq2, xp, yp):
-    """Chord-line mixed addition (fused-kernel dispatched on TPU)."""
-    if T._use_fused(t.x.c0, qx.c0, qy.c0, xp, yp):
-        from ..kernels import fused as FK
-
-        return FK.fused_op(_add_step_impl, "g2_add_step", t, qx, qy, xp, yp)
-    return _add_step_impl(t, qx, qy, xp, yp)
-
-
-def _add_step_impl(t: ProjG2, qx: Fq2, qy: Fq2, xp, yp):
     """Chord-line mixed addition T + Q (Q affine). Returns (T+Q, (A,B,C))."""
     X, Y, Z = t
     theta = T.fq2_sub(Y, T.fq2_mul(qy, Z))
@@ -196,7 +167,7 @@ def _pin_el(e):
     Inputs whose static value bound exceeds STD_BOUND (e.g. `neg_mod` of
     a STD_BOUND-tagged value — the hash path's odd-y negation) are value-
     reduced first: one leaf multiplication, decided at trace time, so the
-    pin accepts EVERY producer instead of asserting (the BENCH_r02
+    pin accepts EVERY producer instead of asserting (the trace-time
     regression class — see tests/test_bound_pinning.py)."""
     from ..fields.limbs import STD_BOUND
 
@@ -223,21 +194,6 @@ def _pin_proj(p: ProjG2) -> ProjG2:
     return ProjG2(_pin_fq2(p.x), _pin_fq2(p.y), _pin_fq2(p.z))
 
 
-def _retag_proj(p: ProjG2, vmax=None) -> ProjG2:
-    from ..fields.limbs import STD_BOUND
-
-    v = vmax or STD_BOUND
-    return ProjG2(T.fq2_retag(p.x, v), T.fq2_retag(p.y, v), T.fq2_retag(p.z, v))
-
-
-def _select_proj(mask, t: ProjG2, f: ProjG2) -> ProjG2:
-    return ProjG2(
-        T.fq2_select(mask, t.x, f.x),
-        T.fq2_select(mask, t.y, f.y),
-        T.fq2_select(mask, t.z, f.z),
-    )
-
-
 def _twist_frob(qx: Fq2, qy: Fq2, power: int):
     """pi^power on affine twist coords (power in {1, 2})."""
     if power == 1:
@@ -247,181 +203,6 @@ def _twist_frob(qx: Fq2, qy: Fq2, power: int):
     cx = T.const_fq2(TWIST_FROB_X2)
     cy = T.const_fq2(TWIST_FROB_Y2)
     return T.fq2_mul(qx, cx), T.fq2_mul(qy, cy)
-
-
-# ---------------------------------------------------------------------------
-# fused step bodies: the whole per-digit Miller work as ONE Pallas kernel
-# ---------------------------------------------------------------------------
-
-
-def _dbl_body_impl(f: Fq12, t: ProjG2, xp, yp):
-    """sq + tangent double + sparse line fold, straight-line (kernel)."""
-    f = T.fq12_sq(f)
-    t2, (a, b, c) = _dbl_step_impl(t, xp, yp)
-    f = _fq12_mul_line_impl(f, a, b, c)
-    return _pin_fq12(f), _pin_proj(t2)
-
-
-def _add_body_impl(f: Fq12, t: ProjG2, qx: Fq2, qy: Fq2, xp, yp):
-    """chord add + sparse line fold, straight-line (kernel)."""
-    t2, (a, b, c) = _add_step_impl(t, qx, qy, xp, yp)
-    f = _fq12_mul_line_impl(f, a, b, c)
-    return _pin_fq12(f), _pin_proj(t2)
-
-
-def _miller_loop_unrolled(xp, yp, qx: Fq2, qy: Fq2, inf_mask=None,
-                          naf=None) -> Fq12:
-    """Trace-time-unrolled Miller loop over the STATIC NAF schedule.
-
-    The signed NAF of 6u+2 is a compile-time constant, so instead of a
-    `lax.scan` with a masked `cond` addition, the loop unrolls into 65
-    fused double-body kernels and 23 fused add-body kernels (21 nonzero
-    digits + 2 Frobenius steps) — one Pallas launch per digit, zero
-    select/cond glue, and the add work runs ONLY for nonzero digits.
-    Carrier bounds are pinned to (STD_BOUND, 2^16) inside each kernel so
-    every launch reuses the same two compiled programs.
-
-    naf: digit schedule override (tests use a truncated prefix so the
-    unrolled-vs-scan composition equivalence is CI-affordable).
-    """
-    from ..kernels import fused as FK
-
-    batch = jnp.broadcast_shapes(xp.batch_shape, qx.c0.batch_shape)
-    f = _pin_fq12(T.fq12_one(batch))
-    t = _pin_proj(ProjG2(qx, qy, T.fq2_one(batch)))
-    pqx, pqy = _pin_fq2(qx), _pin_fq2(qy)
-    nqy = _pin_fq2(T.fq2_neg(qy))
-    xpp, ypp = _pin_el(xp), _pin_el(yp)
-
-    for d in (_ATE_NAF if naf is None else naf):
-        f, t = FK.fused_op(_dbl_body_impl, "miller_dbl_body", f, t, xpp, ypp)
-        if d != 0:
-            f, t = FK.fused_op(
-                _add_body_impl,
-                "miller_add_body",
-                f,
-                t,
-                pqx,
-                pqy if d > 0 else nqy,
-                xpp,
-                ypp,
-            )
-
-    q1x, q1y = _twist_frob(pqx, pqy, 1)
-    q2x, q2y = _twist_frob(pqx, pqy, 2)
-    for ax, ay in ((q1x, q1y), (q2x, T.fq2_neg(q2y))):
-        f, t = FK.fused_op(
-            _add_body_impl,
-            "miller_add_body",
-            f,
-            t,
-            _pin_fq2(ax),
-            _pin_fq2(ay),
-            xpp,
-            ypp,
-        )
-
-    if inf_mask is not None:
-        f = T.fq12_select(inf_mask, T.fq12_one(batch), f)
-    return f
-
-
-# ---------------------------------------------------------------------------
-# shared-squaring 2-pair Miller loop with a constant-Q second pair
-# ---------------------------------------------------------------------------
-
-
-def _dbl_body2_impl(f: Fq12, t: ProjG2, xp0, yp0, ca, cb, cc, xp1, yp1):
-    """One doubling digit for BOTH pairs of a verification tuple under a
-    SINGLE shared accumulator squaring: sq + pair-0 tangent double/fold +
-    pair-1 precomputed-constant-line fold (straight-line kernel body).
-
-    Valid because every pair's Miller recurrence is f_i <- f_i^2 * l_i,
-    so the product satisfies (prod f_i) <- (prod f_i)^2 * prod l_i —
-    one fq12_sq per digit per TUPLE instead of one per digit per PAIR.
-    """
-    f = T.fq12_sq(f)
-    t2, (a, b, c) = _dbl_step_impl(t, xp0, yp0)
-    f = _fq12_mul_line_impl(f, a, b, c)
-    a1 = T.fq2_mul_fq(ca, yp1)
-    b1 = T.fq2_mul_fq(cb, xp1)
-    f = _fq12_mul_line_impl(f, a1, b1, cc)
-    return _pin_fq12(f), _pin_proj(t2)
-
-
-def _add_body2_impl(f: Fq12, t: ProjG2, qx, qy, xp0, yp0, ca, cb, cc,
-                    xp1, yp1):
-    """One addition digit for both pairs (no shared squaring on adds)."""
-    t2, (a, b, c) = _add_step_impl(t, qx, qy, xp0, yp0)
-    f = _fq12_mul_line_impl(f, a, b, c)
-    a1 = T.fq2_mul_fq(ca, yp1)
-    b1 = T.fq2_mul_fq(cb, xp1)
-    f = _fq12_mul_line_impl(f, a1, b1, cc)
-    return _pin_fq12(f), _pin_proj(t2)
-
-
-def _miller_loop_pair2_unrolled(xp0, yp0, qx: Fq2, qy: Fq2, xp1, yp1,
-                                coeffs, naf=None) -> Fq12:
-    """miller(P0, Q0) * miller(P1, Qc) with Qc a host constant.
-
-    Trace-time-unrolled over the static NAF schedule like
-    `_miller_loop_unrolled`, but each launch advances BOTH pairs of a
-    verification tuple: pair 0 (variable Q0, e.g. a public key) does the
-    full tangent/chord step; pair 1 (constant Qc, e.g. -G2::one) folds a
-    line from host-precomputed coefficients (pairing/precompute.py) —
-    zero G2 point arithmetic on the device for that pair. One shared
-    accumulator squaring per digit replaces the two of the stacked-pair
-    form, and the final pair-axis product multiply disappears.
-
-    coeffs: `precompute.g2_line_coeffs(Qc_affine, naf)` output; its
-    launch order is asserted against this loop's digit schedule.
-    """
-    from ..kernels import fused as FK
-
-    batch = jnp.broadcast_shapes(xp0.batch_shape, qx.c0.batch_shape,
-                                 xp1.batch_shape)
-    f = _pin_fq12(T.fq12_one(batch))
-    t = _pin_proj(ProjG2(qx, qy, T.fq2_one(batch)))
-    pqx, pqy = _pin_fq2(qx), _pin_fq2(qy)
-    nqy = _pin_fq2(T.fq2_neg(qy))
-    xpp0, ypp0 = _pin_el(xp0), _pin_el(yp0)
-    xpp1, ypp1 = _pin_el(xp1), _pin_el(yp1)
-
-    def const3(entry, kind):
-        k, ca, cb, cc = entry
-        assert k == kind, f"coeff schedule mismatch: {k} != {kind}"
-        return (
-            _pin_fq2(T.const_fq2(ca)),
-            _pin_fq2(T.const_fq2(cb)),
-            _pin_fq2(T.const_fq2(cc)),
-        )
-
-    it = iter(coeffs)
-    for d in (_ATE_NAF if naf is None else naf):
-        ca, cb, cc = const3(next(it), "dbl")
-        f, t = FK.fused_op(
-            _dbl_body2_impl, "miller_dbl_body2",
-            f, t, xpp0, ypp0, ca, cb, cc, xpp1, ypp1,
-        )
-        if d != 0:
-            ca, cb, cc = const3(next(it), "add")
-            f, t = FK.fused_op(
-                _add_body2_impl, "miller_add_body2",
-                f, t, pqx, pqy if d > 0 else nqy,
-                xpp0, ypp0, ca, cb, cc, xpp1, ypp1,
-            )
-
-    q1x, q1y = _twist_frob(pqx, pqy, 1)
-    q2x, q2y = _twist_frob(pqx, pqy, 2)
-    for ax, ay in ((q1x, q1y), (q2x, T.fq2_neg(q2y))):
-        ca, cb, cc = const3(next(it), "add")
-        f, t = FK.fused_op(
-            _add_body2_impl, "miller_add_body2",
-            f, t, _pin_fq2(ax), _pin_fq2(ay),
-            xpp0, ypp0, ca, cb, cc, xpp1, ypp1,
-        )
-    assert next(it, None) is None, "unconsumed precomputed coefficients"
-    return f
 
 
 def _naf(m: int):
@@ -444,7 +225,7 @@ assert _ATE_NAF[0] == 1
 _ATE_NAF = _ATE_NAF[1:]
 
 
-def miller_loop(xp, yp, qx: Fq2, qy: Fq2, inf_mask=None) -> Fq12:
+def miller_loop(xp, yp, qx: Fq2, qy: Fq2, inf_mask=None, naf=None) -> Fq12:
     """f_{6u+2, Q}(P) with Frobenius addition steps.
 
     xp, yp: affine G1 coords, Montgomery limb tensors (18, *batch).
@@ -461,22 +242,8 @@ def miller_loop(xp, yp, qx: Fq2, qy: Fq2, inf_mask=None) -> Fq12:
     digit, so zero digits skip the addition work at runtime instead of
     computing a masked add every step. Digit -1 adds -Q (y negated) —
     the dropped vertical-line factors are subfield elements.
-    """
-    from .. import config as C
 
-    if C.DEFAULT.unroll_static_loops and T._use_fused(
-        xp, yp, qx.c0, qy.c0
-    ):
-        return _miller_loop_unrolled(xp, yp, qx, qy, inf_mask)
-    return _miller_loop_scan(xp, yp, qx, qy, inf_mask)
-
-
-def _miller_loop_scan(xp, yp, qx: Fq2, qy: Fq2, inf_mask=None,
-                      naf=None) -> Fq12:
-    """lax.scan form of the Miller loop (the CPU / non-fused path).
-
-    naf: digit schedule override for truncated-schedule equivalence
-    tests (must match the prefix given to `_miller_loop_unrolled`).
+    naf: digit schedule override (tests run a truncated prefix).
     """
     batch = xp.batch_shape
     f0 = _pin_fq12(T.fq12_one(batch))

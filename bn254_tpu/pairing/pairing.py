@@ -114,50 +114,3 @@ def pairing_check_staged(px, py, qx, qy) -> jnp.ndarray:
     f = _miller_jit(px, py, qx, qy)
     reduced = _reduce_jit(f)
     return _is_one_jit(FE.final_exp_staged(reduced))
-
-
-# ---------------------------------------------------------------------------
-# 2-pair tuple check with a constant second G2 point (pair2 pipeline)
-# ---------------------------------------------------------------------------
-
-
-def _miller2(px0, py0, qx, qy, px1, py1, q_const: str = "neg_g2_one") -> Fq12:
-    from . import precompute as PC
-
-    coeffs = (
-        PC.neg_g2_one_coeffs()
-        if q_const == "neg_g2_one"
-        else PC.g2_one_coeffs()
-    )
-    return M._miller_loop_pair2_unrolled(
-        px0, py0, qx, qy, px1, py1, coeffs
-    )
-
-
-_miller2_jit = jax.jit(_miller2, static_argnames=("q_const",))
-
-
-def pairing_check2(px0, py0, qx, qy, px1, py1,
-                   q_const: str = "neg_g2_one") -> jnp.ndarray:
-    """e(P0, Q0) * e(P1, -G2::one) == 1 per tuple (monolithic form).
-
-    The shared-squaring 2-pair Miller loop with host-precomputed
-    generator lines (pairing/precompute.py): one fq12_sq per digit per
-    tuple, no device G2 arithmetic for the constant pair, no pair-axis
-    reduction. Same per-tuple accept/reject semantics as stacking the
-    two pairs through `pairing_check` (reference ecdsa.rs:49-64).
-    Requires the fused/unrolled TPU path (callers dispatch on
-    config.pair2_miller + tower._use_fused).
-    """
-    return T.fq12_is_one(
-        FE.final_exp(_miller2(px0, py0, qx, qy, px1, py1, q_const=q_const))
-    )
-
-
-def pairing_check2_staged(px0, py0, qx, qy, px1, py1,
-                          q_const: str = "neg_g2_one") -> jnp.ndarray:
-    """Staged-pipeline variant of `pairing_check2`. `q_const` selects the
-    constant second G2 point: "neg_g2_one" (verify) or "g2_one"
-    (key-consistency check with the G1 side negated)."""
-    f = _miller2_jit(px0, py0, qx, qy, px1, py1, q_const=q_const)
-    return _is_one_jit(FE.final_exp_staged(f))

@@ -9,7 +9,7 @@ Mirrors /root/reference/src/types.rs:
 Aggregation is `+` / `-` / unary `-` on PublicKey / PublicKeyG1 / Signature,
 exactly as the reference overloads the Rust operators (types.rs:126-148,
 196-218, 264-286).  Points are stored as host Jacobian integer tuples; the
-batched TPU pipeline converts at the tensor boundary via
+batched device pipeline converts at the tensor boundary via
 `bn254_tpu.utils.convert`.
 """
 

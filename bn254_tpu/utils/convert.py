@@ -17,8 +17,7 @@ from ..host import curve as HC
 
 def _host_to_mont(v: int) -> int:
     """Montgomery conversion on the host (one Python bigint mul) — avoids
-    an eager device mont_mul per tensor, which costs whole round trips on
-    a remote-dispatch TPU backend."""
+    an eager device mont_mul (a device dispatch) per tensor."""
     return (v * MONT_R) % P
 
 

@@ -1,10 +1,10 @@
 // Native host-side BN254 core: fields, towers, curves, optimal-ate pairing,
 // SHA-256 try-and-increment hash-to-G1.
 //
-// This is the TPU framework's host runtime — the role the reference's Rust
+// This is the framework's host runtime — the role the reference's Rust
 // math dependency plays for single-operation paths (key derivation, sign,
 // verify, fixture generation), re-implemented natively (SURVEY.md §2.3).
-// The batched/throughput paths run on TPU (bn254_tpu/pairing, /dist); this
+// The batched/throughput paths run on the device (bn254_tpu/pairing, /dist); this
 // library serves the protocol layer's scalar paths at native speed through
 // a small C ABI (ctypes binding in bn254_tpu/host/native.py).
 //

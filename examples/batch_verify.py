@@ -1,9 +1,9 @@
 #!/usr/bin/env python
-"""Batched BLS verification on a TPU chip (the throughput workload).
+"""Batched BLS verification on a GPU (the throughput workload).
 
 Builds a batch of (message, signature, public key) tuples host-side (native
 C++ core), moves them to the device as Montgomery limb tensors, and runs
-the staged TPU pipeline: batched Miller loops, pair-product reduction, and
+the staged device pipeline: batched Miller loops, pair-product reduction, and
 final exponentiations. Demonstrates both modes:
 
   * independent — per-tuple accept/reject (exact reference `verify`

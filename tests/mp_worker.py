@@ -86,7 +86,7 @@ def main():
 
 def _bench_collective(mesh, proc_id: int, nproc: int):
     """Time the cross-PROCESS Fq12-product all-reduce alone (VERDICT r4
-    #8): the SCALING.md alpha-beta model's DCN per-round cost, measured
+    #8): the cross-process per-round collective cost, measured
     on this real jax.distributed gloo cluster over TCP instead of taken
     from the literature. A no-collective program with the same launch/
     sync structure is timed too; the difference isolates the collective.

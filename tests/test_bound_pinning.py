@@ -1,22 +1,23 @@
-"""Static-bound pinning regression tests (VERDICT round 2, weak #1/#2).
+"""Static-bound pinning regression tests.
 
-BENCH_r02 crashed at TRACE time: `hash/tai_batch.py`'s odd-y negation
-(`neg_mod` of a STD_BOUND-tagged pow output) produced a value bound just
-above STD_BOUND, and `pairing/miller.py:_pin_el`'s `retag` asserted when
-the unrolled Miller loop pinned it. CPU tests never saw it because every
-fused/unrolled input was built with vmax=P and the fused dispatch is off
-on CPU. These tests make the whole regression class CI-visible:
+A benchmark once crashed at TRACE time: `hash/tai_batch.py`'s odd-y
+negation (`neg_mod` of a STD_BOUND-tagged pow output) produced a value
+bound just above STD_BOUND, and `pairing/miller.py:_pin_el`'s `retag`
+asserted when the Miller loop pinned it. Tests that build every input
+with vmax=P never see that. These tests make the whole regression class
+CI-visible:
 
 1. metadata-only (`jax.eval_shape`, no compile): `_pin_el` must accept
    the static bounds of EVERY producer that feeds the Miller loop — real
    `hash_to_g1_batch` outputs, `to_affine` outputs, codec conversions —
-   and the full UNROLLED pipeline (forced dispatch, fused_op shimmed to
-   a plain call) must trace end-to-end on real hash-output bounds.
+   and the full pipeline must trace end-to-end on real hash-output
+   bounds.
 2. numeric: `_pin_el` preserves the residue through its vreduce path;
-   truncated-schedule unrolled-vs-scan equivalence for the Miller loop
-   and exp_u (always-on — the full-schedule variants stay behind
-   BN254_RUN_SLOW in test_kernel_fused.py); and real hash outputs pipe
-   through `verify_batch_independent_staged` end-to-end at batch 4.
+   on truncated schedules the scan Miller loop and exp_u equal a plain
+   Python composition of the same step functions (the scan/cond digit
+   machinery is exercised against a reference without it); and real
+   hash outputs pipe through `verify_batch_independent_staged`
+   end-to-end at batch 4.
 """
 
 import functools
@@ -24,7 +25,6 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
 from bn254_tpu.constants import MONT_R, P
 from bn254_tpu.fields import limbs as L
@@ -33,7 +33,6 @@ from bn254_tpu.fields.limbs import STD_BOUND
 from bn254_tpu.hash import tai_batch as TB
 from bn254_tpu.host import curve as HC
 from bn254_tpu.host import field as HF
-from bn254_tpu.kernels import fused as FK
 from bn254_tpu.pairing import final_exp as FE
 from bn254_tpu.pairing import miller as M
 from bn254_tpu.utils import convert as CV
@@ -67,7 +66,7 @@ def _abstract(el: L.El) -> L.El:
 
 
 def test_pin_accepts_hash_output_bounds():
-    """The exact BENCH_r02 crash: pin real hash_to_g1_batch outputs.
+    """The exact trace-time crash: pin real hash_to_g1_batch outputs.
 
     eval_shape runs the full static-bound bookkeeping without compiling
     or executing anything, so a bound regression anywhere in the hash ->
@@ -111,54 +110,17 @@ def test_pin_accepts_neg_mod_of_std_bound():
     assert out.vmax <= STD_BOUND and out.lmax <= 1 << 16
 
 
-@pytest.fixture()
-def force_unrolled(monkeypatch):
-    """fused_op -> plain call; force the unrolled/fused DISPATCH on CPU
-    so compositions trace exactly as they do on TPU."""
-
-    def plain(fn, key, *args, interpret=False):
-        return fn(*args)
-
-    monkeypatch.setattr(FK, "fused_op", plain)
-    monkeypatch.setattr(T, "_use_fused", lambda *els: not L._KERNEL_MODE)
-    yield
-
-
-@pytest.fixture()
-def jit_routed_bodies(monkeypatch):
-    """Route fused_op step-body calls to per-body jax.jits (compiled once,
-    reused per digit — the CPU analogue of the TPU path's two-program
-    kernel reuse), and force the unrolled/fused dispatch.
-
-    Rationale (measured on this toolchain): tracing the whole unrolled
-    composition into ONE jit compiles in ~150+ s even for a 2-digit
-    schedule, and running it eagerly dispatches ~85k primitives at
-    ~0.4 ms each — per-body jits cost two ~25 s compiles (persisted in
-    the compilation cache) and then run in milliseconds."""
-    routed = {}
-
-    def plain(fn, key, *args, interpret=False):
-        if key not in routed:
-            routed[key] = jax.jit(fn)
-        return routed[key](*args)
-
-    monkeypatch.setattr(FK, "fused_op", plain)
-    monkeypatch.setattr(T, "_use_fused", lambda *els: not L._KERNEL_MODE)
-    yield
-
-
-def test_unrolled_pipeline_traces_on_hash_bounds(force_unrolled, monkeypatch):
-    """Trace (eval_shape, no compile) the unrolled pipeline — device hash
-    -> independent pairing check with per-tuple final exps — the program
-    shape BENCH_r02 ran. Catches any static-bound assert anywhere in the
-    unrolled composition at real producer bounds.
+def test_unrolled_pipeline_traces_on_hash_bounds(monkeypatch):
+    """Trace (eval_shape, no compile) the pipeline — device hash ->
+    independent pairing check with per-tuple final exps — the program
+    shape that crashed. Catches any static-bound assert anywhere in the
+    composition at real producer bounds.
 
     Schedules are truncated (6 NAF digits incl. a nonzero one + both
-    Frobenius adds; 3 exp_u windows incl. a zero one): every unrolled
-    body pins its carriers to the (STD_BOUND, 2^16) fixed point, so the
+    Frobenius adds; 3 exp_u windows incl. a zero one): every loop body
+    pins its carriers to the (STD_BOUND, 2^16) fixed point, so the
     static-bound space after digit 1 is identical for all later digits —
-    the truncation loses no bound coverage and keeps the trace ~15x
-    cheaper."""
+    the truncation loses no bound coverage."""
     from bn254_tpu.dist import batch_verify as BV
 
     naf6 = M._ATE_NAF[:6]
@@ -199,11 +161,36 @@ def _canon12(x):
     return np.stack([np.asarray(L.canon(e).arr) for e in T._fq12_els(x)])
 
 
-def test_miller_unrolled_matches_scan_truncated_real_hash(jit_routed_bodies):
-    """Unrolled-vs-scan composition equivalence on a truncated NAF
-    schedule (CI-affordable), driven by REAL hash outputs (production
-    bounds) — the always-on version of test_kernel_fused's
-    BN254_RUN_SLOW full-schedule cases."""
+def _miller_reference(xp, yp, qx, qy, naf):
+    """The Miller recurrence as a plain Python loop over the same step
+    functions (no scan, no cond, no digit select) — eager, so every op
+    runs as its own small cached program."""
+    batch = xp.batch_shape
+    f = M._pin_fq12(T.fq12_one(batch))
+    t = M._pin_proj(M.ProjG2(qx, qy, T.fq2_one(batch)))
+    nqy = M._pin_fq2(T.fq2_neg(qy))
+
+    def fold(f, t, step, *args):
+        t, (a, b, c) = step(t, *args)
+        return M._pin_fq12(M.fq12_mul_line(f, a, b, c)), M._pin_proj(t)
+
+    for d in naf:
+        f = T.fq12_sq(f)
+        f, t = fold(f, t, M._dbl_step, xp, yp)
+        if d:
+            f, t = fold(f, t, M._add_step, qx, qy if d > 0 else nqy, xp, yp)
+    q1x, q1y = M._twist_frob(qx, qy, 1)
+    q2x, q2y = M._twist_frob(qx, qy, 2)
+    f, t = fold(f, t, M._add_step, q1x, q1y, xp, yp)
+    f, t = fold(f, t, M._add_step, q2x, T.fq2_neg(q2y), xp, yp)
+    return f
+
+
+def test_miller_unrolled_matches_scan_truncated_real_hash():
+    """Scan Miller loop (digit scan + cond add branch + sign select) ==
+    the plain Python composition of the same steps, on a truncated NAF
+    schedule with both add signs, driven by REAL hash outputs
+    (production bounds)."""
     hx, hy, found, _ = _hash_batch()
     assert bool(np.asarray(found).all())
     take2 = lambda e: L.elmap(lambda a: a[:, :2], e)
@@ -211,18 +198,17 @@ def test_miller_unrolled_matches_scan_truncated_real_hash(jit_routed_bodies):
     pqx, pqy = CV.g2_batch_to_device_affine(
         [HC.g2_mul(HC.G2_ONE, 3 + i) for i in range(2)]
     )
-    # both add signs in two digits; the Frobenius adds always run
     naf = (1, -1)
-    got = _canon12(M._miller_loop_unrolled(hx, hy, pqx, pqy, naf=naf))
-    scan = jax.jit(
-        lambda a, b, c, d: M._miller_loop_scan(a, b, c, d, naf=naf)
-    )
+    got = _canon12(_miller_reference(hx, hy, pqx, pqy, naf))
+    scan = jax.jit(lambda a, b, c, d: M.miller_loop(a, b, c, d, naf=naf))
     want = _canon12(scan(hx, hy, pqx, pqy))
     assert np.array_equal(got, want)
 
 
-def test_exp_u_unrolled_matches_scan_truncated(jit_routed_bodies):
-    # a cyclotomic input (easy-part image), batch 2
+def test_exp_u_unrolled_matches_scan_truncated():
+    """Scan exp_u (masked table select, multiply by one on zero windows)
+    == a plain Python window loop that skips zero windows, on a
+    cyclotomic input (easy-part image), batch 2."""
     import random
 
     random.seed(20260820)
@@ -243,7 +229,7 @@ def test_exp_u_unrolled_matches_scan_truncated(jit_routed_bodies):
     def conv(path):
         return L.to_mont(L.from_ints([path(h) for h in hs]))
 
-    dev = T.Fq12(
+    dev = T.fq12_retag(T.Fq12(
         *[
             T.Fq6(
                 *[
@@ -256,12 +242,20 @@ def test_exp_u_unrolled_matches_scan_truncated(jit_routed_bodies):
             )
             for i in range(2)
         ]
-    )
+    ))
     # one zero and one nonzero window
     windows = tuple(FE._U_WINDOWS[:2])
     assert 0 in windows and any(w for w in windows)
-    got = _canon12(FE._exp_u_unrolled(dev, windows=windows))
-    scan = jax.jit(lambda f: FE._exp_u_scan(f, window_digits=windows))
+
+    f2 = T.fq12_retag(T.fq12_cyc_sq(dev))
+    table = {1: dev, 2: f2, 3: T.fq12_retag(T.fq12_mul(f2, dev))}
+    acc = dev
+    for w in windows:
+        acc = T.fq12_retag(T.fq12_cyc_sq(T.fq12_retag(T.fq12_cyc_sq(acc))))
+        if w:
+            acc = T.fq12_retag(T.fq12_mul(acc, table[w]))
+    got = _canon12(acc)
+    scan = jax.jit(lambda f: FE.exp_u(f, window_digits=windows))
     want = _canon12(scan(dev))
     assert np.array_equal(got, want)
 

@@ -1,6 +1,6 @@
 """Device pairing-path unit tests on the CPU backend (tiny batches).
 
-Covers the pieces the golden end-to-end vectors exercise only on TPU:
+Covers the pieces the golden end-to-end vectors exercise only on an accelerator:
 the Granger-Scott cyclotomic square, the windowed u-exponentiation, the
 full final exponentiation, and the 2-pair product check (reference
 semantics: ecdsa.rs:49-64 pairing equation).
@@ -20,7 +20,7 @@ from bn254_tpu.pairing import final_exp as FE
 
 random.seed(20260818)
 
-B = 2  # tiny batch: scan-path (non-pallas) coverage on CPU
+B = 2  # tiny batch: keeps the CPU compiles small
 
 
 def _rnd_fq12_host():

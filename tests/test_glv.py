@@ -2,14 +2,12 @@
 
 Covers: the (β, λ) constant pairing against the host oracle, the
 soundness lattice bound behind the "w = a + λb is uniform over 2^bits
-values" claim, device ladder correctness vs the host oracle (scan path),
-unrolled-vs-scan composition equivalence (fused_op routed to plain jits,
-the test_pair2 pattern), weight validation, and the fused-tier
-weight-and-sum stage under GLV weights.
+values" claim, device ladder correctness vs the host oracle (including
+edge weights: all-ones halves, a zero half, the top bit alone), weight
+validation, and the fused-tier weight-and-sum stage under GLV weights.
 """
 
 import jax
-import numpy as np
 import pytest
 
 from bn254_tpu.constants import P, R
@@ -18,9 +16,7 @@ from bn254_tpu.curve import g1 as DG1
 from bn254_tpu.curve import jacobian as J
 from bn254_tpu.dist import batch_verify as BV
 from bn254_tpu.fields import limbs as L
-from bn254_tpu.fields import tower as T
 from bn254_tpu.host import curve as HC
-from bn254_tpu.kernels import fused as FK
 from bn254_tpu.utils import convert as CV
 
 
@@ -85,50 +81,17 @@ def test_shamir_identity_weight_zero():
     assert DG1.to_host_affine(out) == [None, None]
 
 
-@pytest.fixture()
-def jit_routed_bodies(monkeypatch):
-    routed = {}
-
-    def plain(fn, key, *args, interpret=False):
-        if key not in routed:
-            routed[key] = jax.jit(fn)
-        return routed[key](*args)
-
-    monkeypatch.setattr(FK, "fused_op", plain)
-    monkeypatch.setattr(T, "_use_fused", lambda *els: not L._KERNEL_MODE)
-    yield
-
-
-def test_shamir_unrolled_matches_scan(jit_routed_bodies, monkeypatch):
-    """The fused-kernel unrolled ladder == the scan ladder bit-for-bit
-    (fused_op routed to per-body jits on CPU)."""
-    from bn254_tpu import config as C
-
-    monkeypatch.setattr(
-        C, "DEFAULT", C.DEFAULT.replace(unroll_static_loops=True)
-    )
+def test_shamir_edge_weights_match_host_oracle():
+    """Edge weight halves (all ones, a zero half, the top bit alone, a
+    unit) through the device ladder == host [a + λb mod r]P."""
+    ks = [2, 9, 4, 8]
     pairs = [(0xA7, 0x15), (0x01, 0x00), (0xFF, 0xFF), (0x00, 0x80)]
-    _, p_dev = _dev_points([2, 9, 4, 8])
+    pts, p_dev = _dev_points(ks)
     w = GLV.glv_weights_to_device(pairs, bits=16)
-    table = GLV._table(p_dev)
-    got = GLV._shamir_unrolled(table, w, w.half_bits)
-    want = GLV._shamir_scan(table, w, w.half_bits)
-
-    def canon_pt(pt):
-        return np.stack(
-            [np.asarray(L.canon(c).arr) for c in (pt.x, pt.y, pt.z)]
-        )
-
-    # projective coords may differ; compare affine forms
-    gx, gy, gi = DG1.to_affine(got)
-    wx, wy, wi = DG1.to_affine(want)
-    assert np.array_equal(np.asarray(gi), np.asarray(wi))
-    assert np.array_equal(
-        np.asarray(L.canon(gx).arr), np.asarray(L.canon(wx).arr)
-    )
-    assert np.array_equal(
-        np.asarray(L.canon(gy).arr), np.asarray(L.canon(wy).arr)
-    )
+    got = DG1.to_host_affine(jax.jit(GLV.shamir_scalar_mul)(p_dev, w))
+    for pt, (a, b), g in zip(pts, pairs, got):
+        scalar = (a + GLV.LAMBDA * b) % R
+        assert g == HC.g1_to_affine(HC.g1_mul(pt, scalar)), (a, b)
 
 
 def test_glv_weight_validation():

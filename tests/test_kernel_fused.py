@@ -1,290 +1,101 @@
-"""Fused tower-op Pallas kernels: interpret-mode bit-exactness on CPU.
+"""Tower-level operations vs the pure-Python host oracle.
 
-Two layers of coverage (mirroring tests/test_kernel_montmul.py for the
-leaf CIOS kernel, per VERDICT round-1 item 4):
-
-1. Every fused kernel BODY (fq12 ops, Miller step bodies, exp_u step
-   bodies) runs under the Pallas interpreter via `fused_op(...,
-   interpret=True)` and must be bit-identical (canonical residues) to
-   the same formula traced as ordinary XLA ops — including batch sizes
-   that force block padding and multi-step grids.
-
-2. The trace-time-unrolled Miller loop / exp_u COMPOSITIONS (schedule,
-   bound pinning, Frobenius steps, table windows) run with `fused_op`
-   shimmed to a plain call, and must match the lax.scan reference paths
-   bit-for-bit.
+fq2/fq12 multiplications at a batch that is not a power of two, an
+unbatched NumPy constant operand broadcast against a batch, the
+fixed-exponent pow at the two production exponents, and every loop
+body's trace at a realistic batch (eval_shape, no compile).
 """
 
-import os
-import secrets
+import random
 
 import jax
+import jax.numpy as jnp
 import numpy as np
-import pytest
 
-# The fq12-level kernel bodies are ~40k-equation straight-line programs;
-# the Pallas interpreter (and the XLA CPU compiles behind it) takes >10
-# minutes per case, so the heavy cases are opt-in. The same equivalences
-# run bit-exactly on real TPU hardware via tools/ab_fused.py (asserted,
-# not just timed), and the cheap fq2-level machinery test below always
-# runs.
-SLOW = pytest.mark.skipif(
-    not os.environ.get("BN254_RUN_SLOW"),
-    reason="multi-minute interpret/compile; covered on TPU by tools/ab_fused.py (set BN254_RUN_SLOW=1)",
-)
-
-from bn254_tpu import config as C
 from bn254_tpu.constants import MONT_R, P
 from bn254_tpu.fields import limbs as L
 from bn254_tpu.fields import tower as T
-from bn254_tpu.kernels import fused as FK
+from bn254_tpu.host import field as HF
 from bn254_tpu.pairing import final_exp as FE
 from bn254_tpu.pairing import miller as M
 
-RNG = np.random.default_rng(20260819)
+RNG = random.Random(20260819)
 
 
-def rnd_el(shape):
-    n = int(np.prod(shape)) if shape else 1
-    vals = np.array(
-        [secrets.randbelow(P) * MONT_R % P for _ in range(n)], dtype=object
-    ).reshape(shape)
-    return L.from_ints(vals.tolist() if shape else int(vals), vmax=P)
+def _mont(vals, vmax=P):
+    return L.from_ints([v * MONT_R % P for v in vals], vmax=vmax)
 
 
-def rnd2(shape):
-    return T.Fq2(rnd_el(shape), rnd_el(shape))
+def _fq2_dev(hs):
+    return T.Fq2(_mont([h[0] for h in hs]), _mont([h[1] for h in hs]))
 
 
-def rnd12(shape):
-    return T.Fq12(
-        *[T.Fq6(*[rnd2(shape) for _ in range(3)]) for _ in range(2)]
-    )
+def _fq2_host(d):
+    c0 = L.to_ints(L.from_mont(d.c0)).reshape(-1)
+    c1 = L.to_ints(L.from_mont(d.c1)).reshape(-1)
+    return [(int(a), int(b)) for a, b in zip(c0, c1)]
 
 
-def canon12(x):
-    return np.stack([np.asarray(L.canon(e).arr) for e in T._fq12_els(x)])
-
-
-def canon_proj(p):
-    els = [p.x.c0, p.x.c1, p.y.c0, p.y.c1, p.z.c0, p.z.c1]
-    return np.stack([np.asarray(L.canon(e).arr) for e in els])
-
-
-# batch 1030: pads to 2048 (two grid steps + 1018 padded lanes)
-B = (1030,)
-
-
-@pytest.fixture(scope="module")
-def operands():
-    f = T.fq12_retag(rnd12(B))
-    m = T.fq12_retag(rnd12(B))
-    t = M._pin_proj(M.ProjG2(rnd2(B), rnd2(B), rnd2(B)))
-    q = (M._pin_fq2(rnd2(B)), M._pin_fq2(rnd2(B)))
-    xp, yp = M._pin_el(rnd_el(B)), M._pin_el(rnd_el(B))
-    return f, m, t, q, xp, yp
-
-
-CASES = [
-    ("fq12_mul", T._fq12_mul_impl, lambda o: (o[0], o[1]), canon12),
-    ("fq12_sq", T._fq12_sq_impl, lambda o: (o[0],), canon12),
-    ("fq12_cyc_sq", T._fq12_cyc_sq_impl, lambda o: (o[0],), canon12),
-    (
-        "fq12_mul_line",
-        M._fq12_mul_line_impl,
-        lambda o: (o[0], o[3][0], o[3][1], o[1].c0.c0),
-        canon12,
-    ),
-    (
-        "miller_dbl_body",
-        M._dbl_body_impl,
-        lambda o: (o[0], o[2], o[4], o[5]),
-        None,
-    ),
-    (
-        "miller_add_body",
-        M._add_body_impl,
-        lambda o: (o[0], o[2], o[3][0], o[3][1], o[4], o[5]),
-        None,
-    ),
-    ("expu_step", FE._expu_step_impl, lambda o: (o[0], o[1]), canon12),
-    ("expu_sq2", FE._expu_sq2_impl, lambda o: (o[0],), canon12),
-]
-
-
-def _canon_tree(out, canon):
-    if canon is not None:
-        return canon(out)
-    # (Fq12, ProjG2) pairs from the Miller bodies
-    return np.concatenate([canon12(out[0]), canon_proj(out[1])])
+def _rnd_fq2(n):
+    return [(RNG.randrange(P), RNG.randrange(P)) for _ in range(n)]
 
 
 def test_fused_op_machinery_interpret_bit_exact():
-    """fused_op end-to-end (blocking, padding, bound inference, output
-    re-assembly) under the Pallas interpreter, on a body small enough
-    for CI: one Fq2 multiplication (3 leaf CIOS muls)."""
-    a, b = rnd2((1030,)), rnd2((1030,))  # pads to 2048: two grid steps
-    kernel_out = FK.fused_op(T.fq2_mul, "fq2_mul_test", a, b, interpret=True)
-    with FK._KernelMode():
-        ref_out = T.fq2_mul(a, b)
-    got = np.stack([np.asarray(L.canon(e).arr) for e in kernel_out])
-    want = np.stack([np.asarray(L.canon(e).arr) for e in ref_out])
-    assert np.array_equal(got, want)
+    """fq2_mul (3 leaf multiplies, Karatsuba glue) at 1030 lanes — not a
+    power of two — equals the host oracle lane by lane, jitted and eager
+    bit for bit."""
+    a, b = _rnd_fq2(1030), _rnd_fq2(1030)
+    da, db = _fq2_dev(a), _fq2_dev(b)
+    out = jax.jit(T.fq2_mul)(da, db)
+    assert _fq2_host(out) == [HF.fq2_mul(x, y) for x, y in zip(a, b)]
+    eager = T.fq2_mul(da, db)
+    for e, j in zip(eager, out):
+        assert np.array_equal(np.asarray(e.arr), np.asarray(j.arr))
 
 
 def test_fused_op_unbatched_const_operand():
-    """fused_op with an UNBATCHED (18,) constant operand (the pair2
-    precomputed-line case): batch-dim padding must append singleton dims
-    per the limbs._bc convention — trailing-aligned jnp.broadcast_to
-    alone pairs the limb axis with a batch axis and fails (the round-3
-    indep_pair2 bench failure). Interpret-mode bit-exactness included."""
-    a = rnd2((64,))
+    """An UNBATCHED (18,) NumPy constant operand (const_fq2) broadcasts
+    per the limbs._bc convention against a (18, 64) batch."""
+    a = _rnd_fq2(64)
     c = T.const_fq2((5, 7))  # (18,) numpy-backed constant components
-    kernel_out = FK.fused_op(T.fq2_mul, "fq2_mul_const_test", a, c,
-                             interpret=True)
-    with FK._KernelMode():
-        ref_out = T.fq2_mul(a, T.Fq2(L.bcast_to(c.c0, (64,)),
-                                     L.bcast_to(c.c1, (64,))))
-    got = np.stack([np.asarray(L.canon(e).arr) for e in kernel_out])
-    want = np.stack([np.asarray(L.canon(e).arr) for e in ref_out])
-    assert np.array_equal(got, want)
+    out = jax.jit(T.fq2_mul)(_fq2_dev(a), c)
+    assert _fq2_host(out) == [HF.fq2_mul(x, (5, 7)) for x in a]
 
 
-def test_pow_fixed_fused_matches_scan(monkeypatch):
-    """The segmented straight-line pow kernels == the scan form for the
-    two production exponents (Fermat inverse p-2, sqrt (p+1)/4), with
-    fused_op routed to plain jits on CPU."""
-    from bn254_tpu.constants import P as P_CONST
-
-    routed = {}
-
-    def plain(fn, key, *args, interpret=False):
-        if key not in routed:
-            routed[key] = jax.jit(fn)
-        return routed[key](*args)
-
-    monkeypatch.setattr(FK, "fused_op", plain)
-    monkeypatch.setattr(L, "_pow_use_fused", lambda a: True)
-
-    a = rnd_el((6,))
-    base = L.retag(L.norm_limbs(a), L.STD_BOUND)
-    for exponent in (P_CONST - 2, (P_CONST + 1) // 4, 1, 5):
-        bits = tuple(int(c) for c in bin(exponent)[2:])[1:]
-        got = L._pow_fixed_fused(base, bits)
-        monkeypatch.setattr(L, "_pow_use_fused", lambda a: False)
-        want = L.pow_fixed(a, exponent)
-        monkeypatch.setattr(L, "_pow_use_fused", lambda a: True)
-        assert np.array_equal(
-            np.asarray(L.canon(got).arr), np.asarray(L.canon(want).arr)
-        ), hex(exponent)
+def test_pow_fixed_fused_matches_scan():
+    """pow_fixed at the two production exponents (Fermat inverse p-2,
+    sqrt (p+1)/4) and two small ones == Python pow, lane by lane."""
+    vals = [RNG.randrange(1, P) for _ in range(6)]
+    a = _mont(vals)
+    for exponent in (P - 2, (P + 1) // 4, 1, 5):
+        got = L.to_ints(L.from_mont(
+            jax.jit(lambda x, e=exponent: L.pow_fixed(x, e))(a)
+        )).reshape(-1)
+        assert [int(g) for g in got] == [pow(v, exponent, P) for v in vals]
 
 
 def test_kernel_bodies_trace_without_captured_arrays():
-    """Every fused kernel body TRACES through a real (non-interpret)
-    pallas_call via eval_shape — Pallas rejects captured array constants
-    at trace time, so this catches in-kernel jnp constants (e.g. the
-    J.identity inside the GLV ladder body building mont_one from a
-    NumPy array: the round-4 fused-chunked failure) without compiling."""
+    """Every loop body of the pipeline — the Miller loop, exp_u, the GLV
+    ladder, the fixed pow — traces at a 2048-lane batch via eval_shape
+    (static bounds and shapes only; nothing compiles)."""
     from bn254_tpu.curve import glv as GLV
     from bn254_tpu.curve import jacobian as JJ
 
     def mk(shape=(2048,)):
-        import jax.numpy as jnp
-
-        return L.El(jnp.ones((18,) + shape, jnp.uint32), L.STD_BOUND,
-                    1 << 16)
+        return L.El(jax.ShapeDtypeStruct((18,) + shape, jnp.uint32),
+                    L.STD_BOUND, 1 << 16)
 
     e = mk()
-    acc = JJ.JPoint(e, e, e)
-
-    def glv_case():
-        return FK.fused_op(
-            GLV._dbl_add_body_impl, "glv_dbl_add_trace",
-            acc.x, acc.y, acc.z, e, e, e,
-        )
-
     f2 = T.Fq2(e, e)
     f12 = T.Fq12(*[T.Fq6(f2, f2, f2) for _ in range(2)])
-    t = M.ProjG2(f2, f2, f2)
+    w = GLV.GlvWeights(L.El(mk().arr, 1 << 64, 1 << 15),
+                       L.El(mk().arr, 1 << 64, 1 << 15), 128)
 
-    cases = {
-        "glv": glv_case,
-        "fq12_mul": lambda: FK.fused_op(
-            T._fq12_mul_impl, "fq12_mul_trace", f12, f12
-        ),
-        "dbl_body": lambda: FK.fused_op(
-            M._dbl_body_impl, "dbl_body_trace", f12, t, e, e
-        ),
-        "dbl_body2": lambda: FK.fused_op(
-            M._dbl_body2_impl, "dbl_body2_trace",
-            f12, t, e, e, f2, f2, f2, e, e,
-        ),
-        "expu_step": lambda: FK.fused_op(
-            FE._expu_step_impl, "expu_step_trace", f12, f12
-        ),
-    }
-    for name, fn in cases.items():
-        jax.eval_shape(fn)  # raises on captured array constants
-
-
-@SLOW
-@pytest.mark.parametrize("name,impl,pick,canon", CASES)
-def test_fused_kernel_interpret_bit_exact(operands, name, impl, pick, canon):
-    args = pick(operands)
-    kernel_out = FK.fused_op(impl, name, *args, interpret=True)
-    with FK._KernelMode():
-        ref_out = impl(*args)
-    got = _canon_tree(kernel_out, canon)
-    want = _canon_tree(ref_out, canon)
-    assert np.array_equal(got, want), f"{name}: kernel != reference"
-
-
-# ---------------------------------------------------------------------------
-# unrolled compositions vs the scan reference paths
-# ---------------------------------------------------------------------------
-
-
-@pytest.fixture()
-def shim_fused(monkeypatch):
-    """Make fused_op a plain call and force the fused-op DISPATCH (but
-    not the leaf montmul kernel) on CPU, so the unrolled compositions
-    trace as ordinary XLA ops."""
-
-    def plain(fn, key, *args, interpret=False):
-        return fn(*args)
-
-    monkeypatch.setattr(FK, "fused_op", plain)
-    monkeypatch.setattr(T, "_use_fused", lambda *els: not L._KERNEL_MODE)
-    yield
-
-
-@SLOW
-def test_exp_u_unrolled_matches_scan(shim_fused):
-    f = T.fq12_retag(rnd12((4,)))
-    got = canon12(FE._exp_u_unrolled(f))
-    want = canon12(_exp_u_scan(f))
-    assert np.array_equal(got, want)
-
-
-def _exp_u_scan(f):
-    cfg = C.DEFAULT
-    C.DEFAULT = cfg.replace(unroll_static_loops=False, use_pallas=False)
-    try:
-        return FE.exp_u(f)
-    finally:
-        C.DEFAULT = cfg
-
-
-@SLOW
-def test_miller_unrolled_matches_scan(shim_fused):
-    shape = (2,)
-    xp, yp = rnd_el(shape), rnd_el(shape)
-    q = (rnd2(shape), rnd2(shape))
-    got = canon12(M._miller_loop_unrolled(xp, yp, q[0], q[1]))
-    cfg = C.DEFAULT
-    C.DEFAULT = cfg.replace(unroll_static_loops=False, use_pallas=False)
-    try:
-        want = canon12(M.miller_loop(xp, yp, q[0], q[1]))
-    finally:
-        C.DEFAULT = cfg
-    assert np.array_equal(got, want)
+    out = jax.eval_shape(M.miller_loop, e, e, f2, f2)
+    assert out.c0.c0.c0.arr.shape == (18, 2048)
+    out = jax.eval_shape(FE.exp_u, f12)
+    assert out.c1.c2.c1.arr.shape == (18, 2048)
+    out = jax.eval_shape(GLV.shamir_scalar_mul, JJ.JPoint(e, e, e), w)
+    assert out.z.arr.shape == (18, 2048)
+    out = jax.eval_shape(L.inv_mod, e)
+    assert out.arr.shape == (18, 2048)

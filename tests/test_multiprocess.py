@@ -3,7 +3,7 @@
 Spawns N python processes, each with ONE local CPU device, forming a
 jax.distributed cluster (gloo collectives). The sharded fused verifier
 then runs across the process-spanning mesh — the same code path a
-multi-host TPU slice uses, with DCN replaced by local TCP. Asserts
+multi-host deployment uses, with the interconnect replaced by local TCP. Asserts
 acceptance of a valid batch and rejection of a tampered one on every
 process.
 """

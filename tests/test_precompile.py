@@ -51,7 +51,7 @@ def test_resize_keeps_aux():
 @pytest.mark.skipif(
     not os.environ.get("BN254_RUN_SLOW"),
     reason="compiles the full pipeline twice on CPU (~25 min on a "
-    "2-core host); the TPU bench --prewarm path asserts the same "
+    "2-core host); the GPU bench --prewarm path asserts the same "
     "end-to-end equivalence on every run. Set BN254_RUN_SLOW=1.",
 )
 @pytest.mark.isolated

@@ -1,69 +1,53 @@
-"""Unrolled carry/borrow chains vs the lax.scan reference forms.
-
-On the TPU backend fields/limbs.py unrolls every carry chain into
-straight-line code (PERF.md §3: an 18-iteration while loop costs ~26 us
-of pure loop overhead per call); the CPU test suite normally runs the
-scan forms. These tests force the unrolled paths on CPU (monkeypatching
-the backend predicate) and require bit-identical results, so the exact
-code that runs on the chip is covered by pytest.
+"""Carry/borrow chains (the lax.scan forms in fields/limbs.py) vs
+Python-int references: signed and unsigned carry propagation, offset
+subtraction, negation, limb normalisation of lazy columns, conditional
+subtraction and comparison at the threshold edges, eager and jitted.
 """
 
 import random
 
 import jax
 import numpy as np
-import pytest
 
-from bn254_tpu.constants import P
+from bn254_tpu.constants import LIMB_BITS, MONT_R, P
 from bn254_tpu.fields import limbs as L
-
-
-@pytest.fixture
-def force_unroll(monkeypatch):
-    monkeypatch.setattr(L, "_unroll_carries", lambda: True)
 
 
 def _rand_el(rng, n, vmax=P):
     return L.from_ints([rng.randrange(vmax) for _ in range(n)], vmax=vmax)
 
 
-def _both(fn, *args, force):
-    """Run fn under scan and unrolled forms, return both raw arrays."""
-    want = fn(*args)
-    with force:
-        got = fn(*args)
-    return want, got
+def _vals(el):
+    return [int(v) for v in L.to_ints(el.arr).reshape(-1)]
 
 
-def test_sub_neg_norm_unrolled(monkeypatch):
+def _normalised(el):
+    return int(np.asarray(el.arr).max()) < 1 << LIMB_BITS
+
+
+def test_sub_neg_norm_unrolled():
     rng = random.Random(31)
     n = 97
     a = _rand_el(rng, n)
     b = L.add_mod(_rand_el(rng, n), _rand_el(rng, n))  # lazy limbs
+    av, bv = _vals(a), _vals(b)
 
-    want_sub = L.sub_mod(a, b)
-    want_neg = L.neg_mod(b)
-    want_norm = L.norm_limbs(b)
+    sub = L.sub_mod(a, b)
+    neg = L.neg_mod(b)
+    norm = L.norm_limbs(b)
     lazy_cols = L.El(b.arr * np.uint32(9), b.vmax * 9, b.lmax * 9)
-    want_norm9 = L.norm_limbs(lazy_cols)
+    norm9 = L.norm_limbs(lazy_cols)
 
-    monkeypatch.setattr(L, "_unroll_carries", lambda: True)
-    got_sub = L.sub_mod(a, b)
-    got_neg = L.neg_mod(b)
-    got_norm = L.norm_limbs(b)
-    got_norm9 = L.norm_limbs(lazy_cols)
-
-    for w, g in [
-        (want_sub, got_sub),
-        (want_neg, got_neg),
-        (want_norm, got_norm),
-        (want_norm9, got_norm9),
-    ]:
-        assert w.vmax == g.vmax and w.lmax == g.lmax
-        assert np.array_equal(np.asarray(w.arr), np.asarray(g.arr))
+    for el in (sub, neg, norm, norm9):
+        assert _normalised(el) and el.lmax == 1 << LIMB_BITS
+        assert all(v < el.vmax for v in _vals(el))
+    assert [v % P for v in _vals(sub)] == [(x - y) % P for x, y in zip(av, bv)]
+    assert [v % P for v in _vals(neg)] == [(-y) % P for y in bv]
+    assert _vals(norm) == bv  # value unchanged, limbs carried
+    assert _vals(norm9) == [9 * y for y in bv]
 
 
-def test_cond_sub_lt_unrolled(monkeypatch):
+def test_cond_sub_lt_unrolled():
     rng = random.Random(37)
     # values straddling the threshold, including exact-equality edges
     vals = [0, 1, P - 1, P, P + 1, 2 * P - 1, 2 * P, 3 * P // 2] + [
@@ -71,47 +55,30 @@ def test_cond_sub_lt_unrolled(monkeypatch):
     ]
     a = L.from_ints(vals, vmax=3 * P)
 
-    want_cs = L.cond_sub(a, P)
-    want_lt = L.lt_const(a, P)
-    want_canon = L.canon(a)
+    cs = L.cond_sub(a, P)
+    lt = np.asarray(L.lt_const(a, P))
+    canon = L.canon(a)
 
-    monkeypatch.setattr(L, "_unroll_carries", lambda: True)
-    got_cs = L.cond_sub(a, P)
-    got_lt = L.lt_const(a, P)
-    got_canon = L.canon(a)
-
-    assert np.array_equal(np.asarray(want_cs.arr), np.asarray(got_cs.arr))
-    assert np.array_equal(np.asarray(want_lt), np.asarray(got_lt))
-    assert np.array_equal(
-        np.asarray(want_canon.arr), np.asarray(got_canon.arr)
-    )
-    # value check
-    gv = L.to_ints(got_canon.arr).reshape(-1)
-    for v, g in zip(vals, gv):
-        assert int(g) == v % P
+    assert _vals(cs) == [v - P if v >= P else v for v in vals]
+    assert lt.tolist() == [v < P for v in vals]
+    assert _vals(canon) == [v % P for v in vals]
 
 
-def test_unrolled_inside_jit(monkeypatch):
-    """The unrolled chains trace and compile under jit (batch shapes)."""
-    monkeypatch.setattr(L, "_unroll_carries", lambda: True)
+def test_unrolled_inside_jit():
+    """The carry chains trace and compile under jit (batch shapes) and
+    agree with eager execution bit for bit."""
     rng = random.Random(41)
     n = 64
     a = _rand_el(rng, n)
     b = _rand_el(rng, n)
 
-    @jax.jit
     def f(a, b):
         s = L.sub_mod(a, b)
         m = L.mont_mul(s, b)
         return L.canon(m)
 
-    out = f(a, b)
-    RINV = pow(L.MONT_R, -1, P) if hasattr(L, "MONT_R") else None
-    from bn254_tpu.constants import MONT_R
-
+    out = jax.jit(f)(a, b)
+    assert np.array_equal(np.asarray(out.arr), np.asarray(f(a, b).arr))
     rinv = pow(MONT_R, -1, P)
-    av = L.to_ints(a.arr).reshape(-1)
-    bv = L.to_ints(b.arr).reshape(-1)
-    gv = L.to_ints(out.arr).reshape(-1)
-    for x, y, g in zip(av, bv, gv):
-        assert int(g) == ((int(x) - int(y)) * int(y) * rinv) % P
+    for x, y, g in zip(_vals(a), _vals(b), _vals(out)):
+        assert g == ((x - y) * y * rinv) % P
